@@ -1,7 +1,7 @@
 // Native host-side runtime for stereo_depth_ruler_tpu.
 //
 // The reference implements its entire runtime in C++ (OpenCV/PCL); the
-// TPU framework keeps the compute path in XLA/Pallas but implements the
+// JAX framework keeps the compute path in XLA but implements the
 // host-side I/O runtime natively where throughput matters:
 //   - binary PCD writing (the reference's pcl::io::savePCDFileBinary,
 //     point_cloud/src/pcd_write.cpp:135-146) without Python overhead;

@@ -5,7 +5,7 @@ Counterpart of the reference's ``StereoCalibrator``
 chessboards (19 mm squares) in left/right frame directories, calibrate
 each eye, stereo-calibrate, rectify (CALIB_ZERO_DISPARITY, alpha=0), and
 emit the same YAML schema as config/stereo.yaml. Runs once on host —
-not a TPU workload (SURVEY.md §2.2) — using OpenCV's calib3d (cv2 is the
+not a device workload (SURVEY.md §2.2) — using OpenCV's calib3d (cv2 is the
 host-side solver; the device pipeline never depends on it).
 
 Also provides ``stereo_rectify_np``, a pure-NumPy reimplementation of

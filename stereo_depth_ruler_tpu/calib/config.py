@@ -1,6 +1,6 @@
 """Stereo calibration data model + OpenCV-style YAML I/O.
 
-TPU-native counterpart of the reference's ``StereoConfiguration``
+Counterpart of the reference's ``StereoConfiguration``
 (reference: stereo_vision/include/stereo_configuration.hpp:6-16,
 stereo_vision/src/stereo_configuration.cpp:4-80). The reference stores the
 calibration as a ``cv::FileStorage`` YAML file with ``!!opencv-matrix`` typed

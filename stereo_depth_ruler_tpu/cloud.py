@@ -19,6 +19,7 @@ downsample -> binary PCD per frame. Differences by design:
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -28,6 +29,7 @@ import numpy as np
 
 from .calib.config import StereoRig
 from .io.pcd import write_pcd
+from .ops.backend import select_aggregator
 from .ops.reproject import reproject_to_3d
 from .ops.sgbm import SGBMParams, sgbm
 from .ops.voxel import voxel_downsample
@@ -43,7 +45,6 @@ class CloudConfig:
     reference_mode: bool = True      # raw full-res SGBM like pcd_write.cpp
     binary: bool = True
     organized: bool = False          # write the pre-voxel organized cloud
-    matcher: str = "auto"            # "auto" | "pallas" | "jnp"
 
 
 class PointCloudGenerator:
@@ -53,18 +54,9 @@ class PointCloudGenerator:
                  matcher=None):
         self.rig = rig
         self.config = config
-        self._matcher = matcher or self._pick_matcher(config.matcher)
+        self._matcher = matcher or partial(
+            sgbm, aggregator=select_aggregator())
         self._compute = jax.jit(self._build())
-
-    @staticmethod
-    def _pick_matcher(which: str):
-        """Fused Pallas matcher on TPU, jnp scan matcher on CPU —
-        mirrors StereoPipeline._pick_matcher (bit-identical paths)."""
-        if which == "pallas" or (which == "auto"
-                                 and jax.default_backend() != "cpu"):
-            from .ops.sgbm_pallas import sgbm_pallas
-            return sgbm_pallas
-        return sgbm
 
     def _build(self):
         cfg = self.config

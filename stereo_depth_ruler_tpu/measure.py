@@ -4,7 +4,7 @@ Framework counterpart of the reference's interactive ``StereoDisplayer``
 measurement mode (stereo_displayer.cpp:24-63, 202-250): pick two pixels on
 a frozen frame, read their reprojected XYZ, record ‖xyz1 − xyz2‖ in a
 session with CSV persistence (schema of save_csvFile,
-stereo_displayer.cpp:74-102). TPU hosts are headless, so point picking is
+stereo_displayer.cpp:74-102). Accelerator hosts are headless, so point picking is
 an API/CLI concern; the engine itself is pure data — pass pixel pairs, get
 records.
 """

@@ -1,6 +1,6 @@
 """Undistortion + rectification as precomputed remap grids + device gather.
 
-TPU-native counterpart of the reference's ``StereoRectifier``
+Counterpart of the reference's ``StereoRectifier``
 (stereo_rectifier.cpp:6-14 precomputes ``cv::initUndistortRectifyMap`` tables
 once in the constructor; ``rectify`` then calls ``cv::remap`` with
 INTER_LINEAR per eye, stereo_rectifier.cpp:39-40).
@@ -119,9 +119,8 @@ def remap_bilinear(img: jnp.ndarray, grid: RemapGrid,
 
     ``precision="u8"`` packs the 2x2 bilinear neighborhood into
     one int32 (4 x uint8 lanes, built with three cheap rolls) so each
-    output pixel needs ONE flat gather instead of four — XLA's TPU
-    gather measured 16.4 ms/eye at 720p for the 4-take form (the whole
-    full-pipeline regression budget). The reference operates on 8-bit
+    output pixel needs ONE flat gather instead of four. The reference
+    operates on 8-bit
     imagery end-to-end (cv::remap on CV_8U frames,
     stereo_rectifier.cpp:39-40), so rounding inputs to u8 matches what
     the reference's pipeline sees; StereoPipeline defaults to it. The

@@ -1,6 +1,6 @@
 """Disparity -> metric 3D reprojection via the calibration Q matrix.
 
-TPU-native counterpart of StereoDisparity::computeDepth
+Counterpart of StereoDisparity::computeDepth
 (stereo_disparity.cpp:76-80, cv::reprojectImageTo3D): closed-form, 4 FMAs
 per pixel, trivially batched/jitted.
 
@@ -52,11 +52,9 @@ def reproject_to_3d(disp: jnp.ndarray, Q,
     when ``handle_missing`` (cv::reprojectImageTo3D handleMissingValues
     analog, pcd_write.cpp:115-116).
 
-    ``layout='chw'`` returns (..., 3, H, W) instead: a minor dim of 3
-    pads to 128 lanes in TPU tiling, so the 'hwc' stack costs ~42x its
-    logical bytes on device (measured 3.2 ms at 720p) — device-resident
-    pipelines should use 'chw' and convert on host (a zero-copy numpy
-    moveaxis view).
+    ``layout='chw'`` returns (..., 3, H, W) instead: three contiguous
+    planes, written without interleaving; device-resident pipelines use
+    it and convert on host (a zero-copy numpy moveaxis view).
     """
     Q = np.asarray(Q, np.float64)
     if scale != 1.0 and not quirk_compat:

@@ -1,11 +1,10 @@
 """Semi-global matching in JAX — the framework's reference device path.
 
-TPU-native re-design of the matcher the reference builds from OpenCV
+Re-design of the matcher the reference builds from OpenCV
 (cv::StereoSGBM + ximgproc right matcher, stereo_disparity.cpp:4-14): the
-(H, W, D) cost volume keeps D (80/128/256) as the minor axis so every
-elementwise/DP op runs across full VPU lanes, and the directional dynamic
-programming is expressed as `lax.scan`s whose per-step state is a whole
-image row/column of disparity vectors:
+(H, W, D) cost volume keeps D (80/128/256) as the minor, contiguous axis,
+and the directional dynamic programming is expressed as `lax.scan`s whose
+per-step state is a whole image row/column of disparity vectors:
 
 - horizontal paths scan over W with an (H, D) carry (rows vectorized);
 - vertical *and both diagonal* paths share one top->bottom scan over H with
@@ -16,9 +15,10 @@ image row/column of disparity vectors:
 
 Everything here is jit-compatible with static shapes; semantics are pinned
 bit-for-bit by the NumPy oracle in ops/sgbm_ref.py (see its docstring for
-the spec decisions). The Pallas kernels in ops/sgbm_pallas.py implement the
-same passes at higher performance; this module is their correctness anchor
-and the CPU/interpret fallback.
+the spec decisions). On the GPU the aggregation runs as the Triton kernel
+in ops/sgm_gpu.py (chosen by ops/backend.py), bitwise equal to
+`aggregate_paths`; this module is its correctness anchor and the CPU
+path.
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ def sobel_clip(img: jnp.ndarray, cap: int) -> jnp.ndarray:
 
     The image is truncated to int32 first (matching sobel_clip_np and
     OpenCV's uint8 input), so the output — and every downstream cost/DP
-    value — is an exact small integer, which the Pallas kernels exploit
-    by computing in int32."""
+    value — is an exact small integer (so float32 sums are exact in any
+    order)."""
     img = img.astype(jnp.int32).astype(jnp.float32)
     p = jnp.pad(img, 1, mode="edge")
     gx = (2.0 * (p[1:-1, 2:] - p[1:-1, :-2])
@@ -268,12 +268,12 @@ def speckle_filter(disp: jnp.ndarray, valid: jnp.ndarray,
                    max_size: int, max_diff: float,
                    max_iters: int = 0) -> jnp.ndarray:
     """Connected-component speckle removal (cv::filterSpeckles semantics)
-    as iterated segmented min-sweeps — a gather-free, TPU-friendly CCL.
+    as iterated segmented min-sweeps — a gather-free CCL.
 
     Two pixels are connected (4-neighborhood) when both are valid and their
     disparities differ by ≤ max_diff. Labels (min flat-index per component)
     propagate via row- and column-directional segmented min scans
-    (associative, O(log) depth, pure VPU), iterated **to convergence**
+    (associative, O(log) depth, elementwise), iterated **to convergence**
     (`while_loop` on "any label changed"), so the result is the exact
     flood-fill CCL for arbitrarily snaky components. Components with
     ≤ max_size pixels are invalidated.
@@ -334,8 +334,9 @@ def sgbm(left: jnp.ndarray, right: jnp.ndarray,
          aggregator=None) -> jnp.ndarray:
     """Full single-image SGBM -> float32 disparity map, invalid = -1.0.
 
-    `aggregator(cost, P1, P2, num_paths)` can inject the Pallas kernels;
-    defaults to the lax.scan implementation above.
+    `aggregator(cost, P1, P2, num_paths)` is the platform's SGM
+    aggregation (ops/backend.select_aggregator); defaults to the lax.scan
+    implementation above.
     """
     cap = params.pre_filter_cap
     lt = sobel_clip(left, cap)

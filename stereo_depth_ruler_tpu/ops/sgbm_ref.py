@@ -1,7 +1,7 @@
 """Pure-NumPy SGBM oracle — slow, loop-explicit, spec-defining.
 
 This module pins the *exact* semantics of the framework's semi-global
-matcher so the JAX/Pallas implementations (ops/sgbm.py, ops/sgbm_pallas.py)
+matcher so the JAX implementations (ops/sgbm.py, ops/sgm_gpu.py)
 can be tested for bit-identical agreement on tiny images. The semantics are
 modeled on OpenCV's StereoSGBM — the matcher the reference constructs with
 (minDisparity=0, numDisparities=80, blockSize=5, P1=600, P2=2400,

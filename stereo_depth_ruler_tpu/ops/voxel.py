@@ -1,4 +1,4 @@
-"""Voxel-grid downsampling of point clouds — static-shape, TPU-friendly.
+"""Voxel-grid downsampling of point clouds — static-shape, jit-friendly.
 
 Counterpart of the reference's PCL ``VoxelGrid`` stage
 (point_cloud/src/pcd_write.cpp:123-130, leaf 0.005): replaces the dynamic

@@ -1,6 +1,6 @@
 """Edge-preserving WLS disparity post-filter (Fast Global Smoother).
 
-TPU-native counterpart of the reference's
+Counterpart of the reference's
 ``cv::ximgproc::createDisparityWLSFilter`` stage (λ=8000, σ_color=1.1,
 stereo_disparity.cpp:11-13, applied at :30-31): a weighted-least-squares
 smoothing of the left disparity guided by the left image, with confidence
@@ -21,7 +21,7 @@ numerically stable for the diagonally dominant FGS systems (b − |a| − |c|
 normalized associative-scan Thomas lift, which loses O(1) accuracy at
 weight discontinuities (w spanning 1e-11…1 makes the cumulative
 linear-fractional products degenerate in f32). All rows/columns solve in
-parallel: the TPU sees (H, W)-shaped elementwise ops and log₂N rounds
+parallel: the device sees (H, W)-shaped elementwise ops and log₂N rounds
 instead of W sequential steps, with one iterative-refinement step to
 polish f32 residuals.
 

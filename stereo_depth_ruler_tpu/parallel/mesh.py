@@ -1,7 +1,7 @@
 """Device mesh construction for the stereo engine.
 
 The reference is single-process, single-thread (SURVEY.md §2.10); this
-module defines the scale-out axes the TPU framework shards over:
+module defines the scale-out axes the framework shards over:
 
 - ``frame`` — data parallelism over video frames (the batch axis of the
   pipeline; maps the reference's frame loop, stereo_displayer.cpp:145-198);
@@ -10,7 +10,8 @@ module defines the scale-out axes the TPU framework shards over:
 - ``disp`` — disparity-range parallelism over the D axis (EP-analog;
   WTA needs an argmin reduction across shards).
 
-Meshes are created over ICI-connected devices; on multi-host slices
+Meshes are created over the devices of one host (all to all joined, so
+the mesh shape follows the algorithm alone); across hosts,
 ``jax.distributed.initialize`` + the same helpers apply unchanged.
 """
 
@@ -37,9 +38,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     """Multi-host runtime bootstrap (SURVEY.md §2.10 'Device mesh &
     runtime').
 
-    Calls ``jax.distributed.initialize``; with no arguments the values
-    come from the environment (TPU pod metadata, or SDR_COORDINATOR /
-    SDR_NUM_PROCESSES / SDR_PROCESS_ID for manual launches — the launcher
+    Calls ``jax.distributed.initialize`` with SDR_COORDINATOR /
+    SDR_NUM_PROCESSES / SDR_PROCESS_ID from the environment (the launcher
     the reference never had, app/stereo_ruler.cpp:16 is single-process).
     Returns True when a multi-process runtime was initialized, False for
     the single-process (or already-initialized) case. Safe to call
@@ -52,8 +52,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     if process_id is None and "SDR_PROCESS_ID" in os.environ:
         process_id = int(os.environ["SDR_PROCESS_ID"])
     if coordinator_address is None and num_processes is None:
-        # single-process (or TPU-pod auto-detect handled by jax itself
-        # when running under a pod launcher)
+        # single-process
         return False
     try:
         jax.distributed.initialize(
@@ -67,8 +66,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 def make_mesh(frame: int = 1, tile: int = 1, disp: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
     """Mesh with axes (frame, tile, disp); total must divide the device
-    count. Axis order puts ``frame`` outermost (DCN-friendly: frames are
-    independent) and ``disp`` innermost (ICI-heavy argmin reductions)."""
+    count. Axis order puts ``frame`` outermost (frames are independent,
+    so it is the axis to span hosts) and ``disp`` innermost (the per-step
+    argmin reductions)."""
     devices = list(devices if devices is not None else jax.devices())
     n = frame * tile * disp
     if len(devices) < n:
@@ -79,8 +79,8 @@ def make_mesh(frame: int = 1, tile: int = 1, disp: int = 1,
 
 def make_global_mesh(tile: int = 1, disp: int = 1) -> Mesh:
     """Multi-host mesh over *all* processes' devices: the frame axis spans
-    hosts (frames are independent — DCN-friendly, only the final metric
-    psum crosses it) and (tile, disp) stay within a host's ICI domain.
+    hosts (frames are independent — only the final metric psum crosses
+    it) and (tile, disp) stay within one host.
 
     Device order from ``jax.devices()`` groups each process's devices
     contiguously, so reshaping (frame, tile, disp) with frame outermost
@@ -96,7 +96,7 @@ def make_global_mesh(tile: int = 1, disp: int = 1) -> Mesh:
     if per > d_local and len(devices) > d_local:
         raise ValueError(
             f"tile*disp={per} spans hosts ({d_local} local devices); keep "
-            "halo/argmin collectives on ICI by sharding frames across "
-            "hosts instead")
+            "the per-step halo/argmin collectives within a host by "
+            "sharding frames across hosts instead")
     return make_mesh(frame=len(devices) // per, tile=tile, disp=disp,
                      devices=devices)

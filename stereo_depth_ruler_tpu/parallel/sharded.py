@@ -1,7 +1,7 @@
 """Sharded SGBM execution over a (frame, tile, disp) device mesh.
 
 The reference has no distributed execution at all (SURVEY.md §2.10); this
-module is the TPU-native scale-out design:
+module is the scale-out design:
 
 - **frame** axis: data parallelism — frames are independent, zero comms.
 - **tile** axis: the H dimension of the (H, W, D) cost volume is sharded.
@@ -10,22 +10,20 @@ module is the TPU-native scale-out design:
     * ``halo`` (default): each tile receives a `halo`-row slab of its
       neighbor's cost volume via `ppermute` and warm-starts the scan from
       the zero state `halo` rows early. SGM's P2 cap + min-normalization
-      attenuate the influence of the start state; measured at the 720p/128
-      operating point (HALO_r04.jsonl, 2-tile mesh): halo=64 is EXACT
-      (agreement 1.0), halo=32 (the default) differs on ~1e-5 of pixels
-      with max error 0.0625 px (1px-agreement 1.0) at half the exchanged
-      bytes — pick 64 for bitwise parity, 32 for throughput. Tile 0
-      (down pass) / last tile (up pass) receive `ppermute`'s zero fill —
-      which IS the exact path-start state, so edge tiles are exact.
+      attenuate the influence of the start state, so a large enough halo
+      reproduces the single-device map; `chip_smoke.py --four-cards`
+      re-measures the agreement at 1280x720x128 with halo=64, and
+      `tools/halo_error.py` sweeps halo sizes. Tile 0 (down pass) / last
+      tile (up pass) receive `ppermute`'s zero fill — which IS the exact
+      path-start state, so edge tiles are exact.
     * ``exact``: sequential wavefront — tile k runs its scan only after
       receiving tile k-1's final carry (ppermute chain). Bitwise equal to
       single-device, at pipeline-serial latency; used as the correctness
-      anchor and for deterministic multi-chip == single-chip tests.
+      anchor and for deterministic multi-device == single-device tests.
 - **disp** axis: the cost volume's D dimension is sharded — each member
   builds, aggregates, and reduces only its D/n_disp disparity slice, so
-  per-device volume memory drops by n_disp (the point of the axis: the
-  2560x1440x256 sweep volume is ~1.9 GB int16 unsharded). The SGM
-  recurrence couples slices two ways, both handled per scan step:
+  per-device volume memory drops by n_disp. The SGM recurrence couples
+  slices two ways, both handled per scan step:
     * the P2 term needs min over the full D axis — `lax.pmin` of the
       local (M, 1) row minimum;
     * the P1 term needs the d±1 neighbors, which cross slice boundaries
@@ -35,8 +33,10 @@ module is the TPU-native scale-out design:
   min/max combines (`_wta_dshard`, `_lr_check_dshard`) — bitwise equal to
   the single-device path (tested).
 
-All collectives are XLA named-axis ops inside `jax.shard_map`; on a real
-pod slice they ride ICI.
+All collectives are XLA named-axis ops inside `jax.shard_map`. The
+per-step collectives of the halo/exact/disp modes live inside the jnp
+scans, so the sharded matcher runs those scans on every supported
+platform (`ops.backend.platform` rejects any other).
 """
 
 from __future__ import annotations
@@ -49,10 +49,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..ops.backend import platform
 from ..ops.reproject import reproject_to_3d
 from ..ops.sgbm import (SGBMParams, _dp_update, _shift_w, bt_cost_volume,
                         box_filter_volume, lr_check, sobel_clip,
                         speckle_filter, wta)
+from ..ops.wls import wls_disparity_filter
 from .mesh import DISP_AXIS, FRAME_AXIS, TILE_AXIS
 
 __all__ = ["sgbm_sharded", "pipeline_step_sharded"]
@@ -333,102 +335,13 @@ def _aggregate_tile_exact(cost: jnp.ndarray, params: SGBMParams,
 
 
 # ---------------------------------------------------------------------------
-# Pallas per-tile matcher (TPU path inside shard_map)
-# ---------------------------------------------------------------------------
-
-
-def _sgbm_pallas_tile(left, right, params: SGBMParams, tile_idx,
-                      n_tile: int, h_local: int, halo: int,
-                      apply_lr: bool = True) -> jnp.ndarray:
-    """Halo-mode tile SGBM dispatching the Mosaic kernels (VERDICT r1
-    item 2: the sharded path must run the Pallas kernels, not the
-    lax.scan fallback). Runs inside shard_map on the TILE axis.
-
-    The halo slab is obtained directly from the replicated images (no
-    ppermute needed: every device holds the full frame — only the cost
-    volume and DP state are sharded); rows outside the image are
-    zero-cost, reproducing the exact fresh path-start state at frame
-    borders (edge tiles exact, like the jnp halo mode's zero fill).
-    Returns this tile's (h_local, W) disparity rows.
-    """
-    from ..ops.sgbm_pallas import build_cost_volume_pallas, sgbm_tile_pallas
-
-    H, W = left.shape
-    if n_tile == 1:
-        halo = 0
-    else:
-        # halo slabs come from the replicated images, so any size works;
-        # round up so the fused-WTA kernel's 8-row blocks divide evenly
-        halo += (-(h_local + halo)) % 8
-    pad = params.block_size // 2 + 1            # box r + sobel context
-    M = h_local + 2 * halo                      # cost slab rows
-    rows_ext = -(-(M + 2 * pad) // 16) * 16     # kernel-friendly multiple
-
-    start = tile_idx * h_local
-    # sobel FIRST, then clamped row gather: the spec (ops/sgbm.sobel_clip
-    # + box edge handling) replicates SOBEL rows at image borders;
-    # gathering image rows before sobel gave border sobel values computed
-    # on duplicated rows — bit-divergent top/bottom cost rows (caught by
-    # the compiled single-device-mesh parity gate, r3)
-    g = start - halo - pad + jnp.arange(rows_ext)
-    gi = jnp.clip(g, 0, H - 1)
-    lt = jnp.take(sobel_clip(left, params.pre_filter_cap), gi, axis=0)
-    rt = jnp.take(sobel_clip(right, params.pre_filter_cap), gi, axis=0)
-    C_ext = build_cost_volume_pallas(lt, rt, params,
-                                     out_dtype=jnp.int16)  # (rows_ext,D,W)
-    C = C_ext[pad:pad + M]
-    # zero the cost on out-of-image halo rows (fresh path-start state)
-    g_cost = start - halo + jnp.arange(M)
-    in_img = ((g_cost >= 0) & (g_cost < H))[:, None, None]
-    C = jnp.where(in_img, C, 0)
-    return sgbm_tile_pallas(C, params, top_halo=halo, bottom_halo=halo,
-                            apply_lr=apply_lr)
-
-
-# ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 
 
-def _resolve_kernel(kernel: str, n_disp: int, exact: bool,
-                    params: SGBMParams) -> str:
-    """'auto' -> the Mosaic kernels on TPU when the configuration allows
-    (halo mode, unsharded D, >=4 paths); the lax.scan path otherwise (and
-    always on CPU meshes, where Mosaic cannot compile).
-
-    Why D-sharding (n_disp > 1) and exact mode keep the scan path — a
-    deliberate design decision, not a TODO (VERDICT r2 item 6):
-
-    - D-sharded DP interleaves two collectives into EVERY row step
-      (`_dp_update_dshard`: pmin for the P2 term, one-lane ppermute for
-      the d±1 P1 neighbors). A Pallas kernel owns its sequential carry
-      for the whole grid; splitting it at every row to run an XLA
-      collective would reduce it to one-row launches — strictly slower
-      than lax.scan, which keeps the per-step collectives fused in one
-      XLA while loop.
-    - exact wavefront mode serializes tiles (tile k consumes tile k-1's
-      final carries via ppermute) — same per-step coupling, same
-      conclusion.
-    - The sweep-memory motivation for the D axis (1.9 GB volume at
-      2560x1440x256) is covered WITH the Pallas kernels by tile-sharding
-      alone: rows over the tile axis with n_disp=1 divides the volume
-      the same way and runs `sgbm_tile_pallas` (tested on a 2-device
-      mesh in tests/test_parallel.py::test_pallas_tile_kernel_in_shard_map
-      and exercised by __graft_entry__.dryrun_multichip).
-    """
-    if kernel == "auto":
-        ok = (jax.default_backend() != "cpu" and n_disp == 1
-              and not exact and params.num_paths >= 4)
-        return "pallas" if ok else "jnp"
-    if kernel == "pallas" and (n_disp != 1 or exact):
-        raise ValueError("pallas kernels support halo mode with an "
-                         "unsharded D axis (exact/dshard run the jnp path)")
-    return kernel
-
-
 def sgbm_sharded(left, right, params: SGBMParams, mesh: Mesh,
                  halo: int = 32, exact: bool = False,
-                 apply_speckle: bool = True, kernel: str = "auto"):
+                 apply_speckle: bool = True):
     """Single-pair SGBM sharded over the mesh's (tile, disp) axes.
 
     Images are replicated; the cost volume and all DP state are sharded —
@@ -444,29 +357,24 @@ def sgbm_sharded(left, right, params: SGBMParams, mesh: Mesh,
     assert H % n_tile == 0, f"H={H} must divide tile axis {n_tile}"
     assert params.num_disparities % n_disp == 0
     h_local = H // n_tile
-    kernel = _resolve_kernel(kernel, n_disp, exact, params)
+    platform()
 
     def impl(l, r):
         tile_idx = jax.lax.axis_index(TILE_AXIS)
         disp_idx = jax.lax.axis_index(DISP_AXIS)
-        if kernel == "pallas":
-            disp = _sgbm_pallas_tile(
-                l, r, params, tile_idx, n_tile, h_local, halo,
-                apply_lr=params.disp12_max_diff >= 0)
+        C = _local_cost_slab(l, r, params, tile_idx, h_local,
+                             disp_idx, n_disp)
+        if exact:
+            S = _aggregate_tile_exact(C, params, params.num_paths,
+                                      n_tile, n_disp, disp_idx)
         else:
-            C = _local_cost_slab(l, r, params, tile_idx, h_local,
-                                 disp_idx, n_disp)
-            if exact:
-                S = _aggregate_tile_exact(C, params, params.num_paths,
-                                          n_tile, n_disp, disp_idx)
-            else:
-                S = _aggregate_tile_halo(C, params, halo, params.num_paths,
-                                         n_tile, n_disp, disp_idx)
-            disp, valid = _wta_dshard(S, params, n_disp, disp_idx)
-            if params.disp12_max_diff >= 0:
-                valid = _lr_check_dshard(S, disp, valid, params, n_disp,
-                                         disp_idx)
-            disp = jnp.where(valid, disp, -1.0)
+            S = _aggregate_tile_halo(C, params, halo, params.num_paths,
+                                     n_tile, n_disp, disp_idx)
+        disp, valid = _wta_dshard(S, params, n_disp, disp_idx)
+        if params.disp12_max_diff >= 0:
+            valid = _lr_check_dshard(S, disp, valid, params, n_disp,
+                                     disp_idx)
+        disp = jnp.where(valid, disp, -1.0)
         # assemble the full map (all_gather over tile; replicate over disp)
         full = jax.lax.all_gather(disp, TILE_AXIS, axis=0, tiled=True)
         return full
@@ -484,8 +392,7 @@ def sgbm_sharded(left, right, params: SGBMParams, mesh: Mesh,
 
 def pipeline_step_sharded(lefts, rights, rig_Q, params: SGBMParams,
                           mesh: Mesh, halo: int = 32,
-                          scale: float = 1.0, kernel: str = "auto",
-                          use_wls: bool = False, rects=None,
+                          scale: float = 1.0, use_wls: bool = False, rects=None,
                           apply_speckle: bool = False):
     """Batched frames over the full (frame, tile, disp) mesh — the
     multi-chip equivalent of the reference's full per-frame hot loop
@@ -493,7 +400,7 @@ def pipeline_step_sharded(lefts, rights, rig_Q, params: SGBMParams,
     stereo_displayer.cpp:145-198; SURVEY.md §2.10 table):
 
     - frames are data-parallel; each frame's cost volume/DP state is
-      tile/disp-sharded (Pallas kernels per tile on TPU via ``kernel``);
+      tile/disp-sharded;
     - ``rects`` (optional (RemapGrid, RemapGrid)) rectifies the
       replicated eyes before matching;
     - ``use_wls`` adds the right matcher (mirrored inputs, sharded the
@@ -513,32 +420,20 @@ def pipeline_step_sharded(lefts, rights, rig_Q, params: SGBMParams,
     N, H, W = lefts.shape
     assert N % n_frame == 0 and H % n_tile == 0
     h_local = H // n_tile
-    kernel = _resolve_kernel(kernel, n_disp, False, params)
-    if kernel == "pallas":
-        # same auto-select as StereoPipeline._pick_wls: VMEM-resident
-        # Pallas FGS on TPU, jnp FGS elsewhere (CPU-mesh tests)
-        from ..ops.wls_pallas import \
-            wls_disparity_filter_pallas as wls_disparity_filter
-    else:
-        from ..ops.wls import wls_disparity_filter
+    platform()
     import numpy as np
     Qj = np.asarray(rig_Q, np.float64)
 
     def match(l, r, tile_idx, disp_idx):
         """Tile/disp-sharded matcher -> full (H, W) disparity map."""
-        if kernel == "pallas":
-            disp = _sgbm_pallas_tile(
-                l, r, params, tile_idx, n_tile, h_local, halo,
-                apply_lr=params.disp12_max_diff >= 0)
-        else:
-            C = _local_cost_slab(l, r, params, tile_idx, h_local,
-                                 disp_idx, n_disp)
-            S = _aggregate_tile_halo(C, params, halo, params.num_paths,
-                                     n_tile, n_disp, disp_idx)
-            disp, valid = _wta_dshard(S, params, n_disp, disp_idx)
-            valid = _lr_check_dshard(S, disp, valid, params, n_disp,
-                                     disp_idx)
-            disp = jnp.where(valid, disp, -1.0)
+        C = _local_cost_slab(l, r, params, tile_idx, h_local,
+                             disp_idx, n_disp)
+        S = _aggregate_tile_halo(C, params, halo, params.num_paths,
+                                 n_tile, n_disp, disp_idx)
+        disp, valid = _wta_dshard(S, params, n_disp, disp_idx)
+        valid = _lr_check_dshard(S, disp, valid, params, n_disp,
+                                 disp_idx)
+        disp = jnp.where(valid, disp, -1.0)
         return jax.lax.all_gather(disp, TILE_AXIS, axis=0, tiled=True)
 
     def one_pair(l, r):

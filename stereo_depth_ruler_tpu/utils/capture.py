@@ -4,7 +4,7 @@ Framework counterparts of the reference's ``utils`` library
 (utils/src/helper.cpp): calibration-frame capture, stills from video,
 calibration-directory renaming, single-image disparity, and per-pixel
 depth dumps. These are host-side dev tools; camera/GUI paths require
-OpenCV and degrade gracefully without it (TPU hosts are headless — the
+OpenCV and degrade gracefully without it (accelerator hosts are headless — the
 capture loops also accept video files instead of live cameras, replacing
 the reference's ZED SDK live path, helper.cpp:166-205).
 """

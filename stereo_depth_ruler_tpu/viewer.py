@@ -1,6 +1,6 @@
 """Local interactive viewer — UX parity with the reference's overlay +
 freeze-frame mouse ruler (stereo_displayer.cpp:121-250), for hosts with a
-display. The TPU pipeline stays the compute path; this module only renders
+display. The device pipeline stays the compute path; this module only renders
 its outputs with OpenCV HighGUI and drives the same MeasurementSession
 engine the headless API/CLI uses.
 

@@ -1,6 +1,6 @@
 """Visualization: disparity/depth heatmaps with the reference's exact
 display semantics (gamma, EMA temporal smoothing, TURBO colormap,
-overlay blending) — host-side numpy; rendering is not a TPU concern.
+overlay blending) — host-side numpy; rendering is not a device concern.
 
 Reference behaviors reproduced:
 - show_disparityMap (stereo_disparity.cpp:42-73): mask disp>0, normalize

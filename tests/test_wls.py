@@ -165,3 +165,40 @@ def test_wls_inpaints_invalid_regions():
     filt = np.asarray(filt)
     assert (filt >= 0).mean() > 0.99
     assert np.abs(filt - 20.0).mean() < 0.5
+
+
+@pytest.fixture(scope="module")
+def wls_data():
+    rng = np.random.default_rng(4)
+    guide = rng.uniform(0, 255, (48, 96)).astype(np.float32)
+    src = rng.uniform(0, 64, (2, 48, 96)).astype(np.float32)
+    return src, guide
+
+
+def test_fgs_stacked_rhs_vs_exact_reference(wls_data):
+    """Two right-hand sides through one FGS solve (the numerator and
+    denominator stack of wls_disparity_filter) vs the float64 solver."""
+    src, guide = wls_data
+    got = np.asarray(fgs_filter(src, guide))
+    exact = _fgs_np(src, guide, 8000.0, 1.1, 3)
+    rel = np.abs(got - exact).max() / max(1.0, np.abs(exact).max())
+    assert rel < 5e-3, rel
+
+
+@pytest.mark.parametrize("hole_frac", [0.2, 0.5])
+def test_wls_random_pair_vs_exact_reference(wls_data, hole_frac):
+    """Random left/right pair with holes on a noise guide: invalid masks
+    and filtered values agree with the float64 reference pipeline."""
+    _, guide = wls_data
+    rng = np.random.default_rng(5)
+    dl = rng.uniform(0, 32, guide.shape).astype(np.float32)
+    dl[rng.uniform(size=dl.shape) < hole_frac] = -1.0
+    dr = (dl + rng.normal(0, 0.3, dl.shape)).astype(np.float32)
+    got, conf = wls_disparity_filter(dl, dr, guide)
+    got, conf = np.asarray(got), np.asarray(conf)
+    num = _fgs_np(conf * np.maximum(dl, 0.0), guide, 8000.0, 1.1, 3)
+    den = _fgs_np(conf, guide, 8000.0, 1.1, 3)
+    ref = np.where(den > 1e-3, num / np.maximum(den, 1e-6), -1.0)
+    ok = ref >= 0
+    assert ((got >= 0) == ok).mean() > 0.999
+    assert np.abs(got[ok] - ref[ok]).mean() < 1e-2

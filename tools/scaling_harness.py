@@ -4,17 +4,17 @@ BASELINE.md asks for >=80% scaling efficiency at 2+ hosts, reported as a
 1-chip / 1-host / N-host table. This harness produces that table on
 whatever devices exist:
 
-- on a multi-host TPU slice (after ``initialize_distributed``) it measures
-  real frame-parallel throughput over the global mesh;
-- on this single-chip/dev environment it runs in **dryrun mode** on the
-  8-virtual-device CPU mesh (JAX_PLATFORMS=cpu +
-  --xla_force_host_platform_device_count) — validating the harness,
-  sharding, and collectives; the printed efficiencies are CPU-mesh
-  numbers, *not* the TPU claim (real numbers need hardware).
+- on the default backend (the GPUs of one host, or several hosts after
+  ``initialize_distributed``) it measures real frame-parallel throughput
+  over the global mesh;
+- with ``--dryrun`` it runs on the 8-virtual-device CPU mesh
+  (JAX_PLATFORMS=cpu + --xla_force_host_platform_device_count) —
+  validating the harness, sharding, and collectives; the printed
+  efficiencies are CPU-mesh numbers, *not* device numbers.
 
 Usage:
-    python tools/scaling_harness.py              # dryrun on 8 CPU devices
-    python tools/scaling_harness.py --tpu        # on the real backend
+    python tools/scaling_harness.py              # on the default backend
+    python tools/scaling_harness.py --dryrun     # on 8 virtual CPU devices
 Emits one JSON line per mesh size plus a markdown table on stderr.
 """
 
@@ -35,9 +35,9 @@ def log(*a):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true",
-                    help="use the default (TPU) backend instead of the "
-                         "8-virtual-device CPU dryrun mesh")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="run on the 8-virtual-device CPU mesh instead of "
+                         "the default backend")
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--num-disp", type=int, default=None)
@@ -46,13 +46,13 @@ def main():
     args = ap.parse_args()
 
     import os
-    if not args.tpu:
+    if args.dryrun:
         flags = os.environ.get("XLA_FLAGS", "")
         if "host_platform_device_count" not in flags:
             os.environ["XLA_FLAGS"] = (
                 flags + " --xla_force_host_platform_device_count=8").strip()
     import jax
-    if not args.tpu:
+    if args.dryrun:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
@@ -69,9 +69,9 @@ def main():
     n_hosts = jax.process_count()
     log(f"{n_dev} devices, {n_hosts} host(s), {d_local} local")
 
-    # dryrun mode shrinks shapes so the CPU mesh finishes fast; TPU mode
-    # runs the headline config
-    if args.tpu:
+    # dryrun mode shrinks shapes so the CPU mesh finishes fast; the
+    # default backend runs the headline config
+    if not args.dryrun:
         H, W, D = 720, 1280, 128
         params = SGBMParams(num_disparities=D, block_size=5,
                             speckle_window_size=0)
@@ -108,23 +108,23 @@ def main():
         fps = nf / dt
         results[n] = fps
         eff = fps / (results[1] * n) if 1 in results and n > 1 else 1.0
-        label = ("1 chip" if n == 1 else
-                 f"1 host ({n} chips)" if n == d_local else
-                 f"{n_hosts} hosts ({n} chips)")
+        label = ("1 device" if n == 1 else
+                 f"1 host ({n} devices)" if n == d_local else
+                 f"{n_hosts} hosts ({n} devices)")
         print(json.dumps({"mesh_devices": n, "label": label,
                           "fps": round(fps, 3),
                           "scaling_efficiency": round(eff, 3),
                           "shape": [H, W, D],
                           "backend": jax.default_backend(),
-                          "dryrun": not args.tpu}))
+                          "dryrun": args.dryrun}))
 
     log("\n| mesh | fps | efficiency |\n|---|---|---|")
     for n in sizes:
         eff = results[n] / (results[1] * n)
         log(f"| {n} dev | {results[n]:.2f} | {eff * 100:.0f}% |")
-    if not args.tpu:
+    if args.dryrun:
         log("(dryrun on a CPU mesh — validates sharding + harness; "
-            "TPU efficiencies require real multi-chip hardware)")
+            "device efficiencies require real multi-device hardware)")
 
 
 if __name__ == "__main__":

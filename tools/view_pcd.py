@@ -1,7 +1,7 @@
 """Local point-cloud viewer for PCD files written by the cloud path.
 
 The reference ends its point-cloud flow in a PCLVisualizer spin loop
-(/root/reference/point_cloud/src/pcd_write.cpp:149-154); TPU hosts are
+(point_cloud/src/pcd_write.cpp:149-154); accelerator hosts are
 headless, so this optional script renders a .pcd to an interactive
 window when a display + open3d are available and otherwise to a PNG
 (matplotlib 3D scatter, headless-safe Agg backend).
